@@ -2,17 +2,17 @@
 #
 #   make native    - build the C++ host runtime (librdt_native.so)
 #   make test      - full hermetic suite on a local 8-device CPU mesh
-#   make test_fast - fast tier (excludes @pytest.mark.slow; < 5 min)
-#   make test_tpu  - compiled-kernel parity on the real chip
-#   make bench     - north-star benchmark (one JSON line)
+#   make test_fast - fast tier (excludes @pytest.mark.slow)
+#   make test_gpu  - compiled Triton kernels against the jnp loops (GPU only)
+#   make smoke     - chip_smoke.py: 1080p frame + train step + parity (GPU only)
+#   make bench     - north-star benchmark (one JSON line, GPU only)
 #   make run_no_args / make help - CLI usage (reference run_no_args)
-#   make memcheck  - kernels in Pallas interpret mode (compute-sanitizer analogue)
 #   make docs      - full API docs into build/docs (Doxygen analogue)
 #   make clean
 
 PY ?= python3
 
-.PHONY: all native test test_fast test_tpu bench run_no_args help memcheck docs clean
+.PHONY: all native test test_fast test_gpu smoke bench run_no_args help docs clean
 
 all: native test
 
@@ -26,30 +26,28 @@ native:
 # "Machine type used for XLA:CPU compilation doesn't match" warnings); every
 # test passes in shorter-lived processes.
 test:
-	$(PY) -m pytest tests/ -q --ignore=tests/test_tpu_hw.py -n 2
+	$(PY) -m pytest tests/ -q -n 2
 
-# quick iteration signal: skips the long interpret-mode sweeps and sequence
-# tests (marked @pytest.mark.slow) while keeping one representative of every
+# quick iteration signal: skips the long parity sweeps and sequence tests
+# (marked @pytest.mark.slow) while keeping one representative of every
 # kernel/parity family; `make test` remains the full pre-commit gate
 test_fast:
-	$(PY) -m pytest tests/ -q --ignore=tests/test_tpu_hw.py -m "not slow"
+	$(PY) -m pytest tests/ -q -m "not slow"
 
-test_tpu:
-	RDT_TEST_PLATFORM=tpu $(PY) -m pytest tests/test_tpu_hw.py -q
+test_gpu:
+	RDT_TEST_GPU=1 $(PY) -m pytest -m gpu tests/ -q
+
+smoke:
+	$(PY) chip_smoke.py
 
 bench:
 	$(PY) bench.py
 
 run_no_args:
-	$(PY) -m raymarchdenoisercuda_tpu.cli
+	$(PY) -m raymarchdenoiser.cli
 
 help:
-	$(PY) -m raymarchdenoisercuda_tpu.cli -h
-
-# interpret-mode kernel checks: the Pallas analogue of compute-sanitizer
-# (reference Makefile:67-68); runs the interpret-vs-oracle parity tests
-memcheck:
-	$(PY) -m pytest tests/test_atrous_pallas.py tests/test_box_pallas.py -q
+	$(PY) -m raymarchdenoiser.cli -h
 
 docs:
 	$(PY) tools/gendocs.py --out build/docs

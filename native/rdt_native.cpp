@@ -1,6 +1,6 @@
-// rdt_native — host-side C++ runtime for raymarchdenoisercuda_tpu.
+// rdt_native — host-side C++ runtime for raymarchdenoiser.
 //
-// TPU-native counterpart of the reference's C++ host runtime
+// Counterpart of the reference's C++ host runtime
 // (include/vector.h transfer paths, src/image.cpp conversions): the uint8
 // interleaved <-> planar float32 conversions that sit on the host->device
 // boundary, plus an independent CPU implementation of the reference filter

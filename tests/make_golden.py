@@ -14,14 +14,19 @@ jax.config.update("jax_platforms", "cpu")
 import jax.image  # noqa: E402
 import numpy as np  # noqa: E402
 
-from raymarchdenoisercuda_tpu.config import SVGFParams  # noqa: E402
-from raymarchdenoisercuda_tpu.gbuffer import History  # noqa: E402
-from raymarchdenoisercuda_tpu.io.dataset import load_frame  # noqa: E402
-from raymarchdenoisercuda_tpu.models.svgf import svgf_denoise_frame  # noqa: E402
+from raymarchdenoiser.config import SVGFParams  # noqa: E402
+from raymarchdenoiser.gbuffer import History  # noqa: E402
+from raymarchdenoiser.io.dataset import load_frame  # noqa: E402
+from raymarchdenoiser.io.generate import write_cornell_fixture  # noqa: E402
+from raymarchdenoiser.models.svgf import svgf_denoise_frame  # noqa: E402
 
 
 def main():
-    g = load_frame("/root/reference/render", "cornell", 1)
+    # the same fixture tests/conftest.py builds: rendered, written, reloaded
+    import tempfile
+    with tempfile.TemporaryDirectory() as root:
+        write_cornell_fixture(root)
+        g = load_frame(root, "cornell", 1)
     small = jax.tree_util.tree_map(
         lambda x: (jax.image.resize(x, x.shape[:-2] + (256, 256), "linear")
                    if hasattr(x, "shape") and x.ndim >= 2 else x),

@@ -5,8 +5,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from raymarchdenoisercuda_tpu.config import SVGFParams
-from raymarchdenoisercuda_tpu.ops.atrous import (
+from raymarchdenoiser.config import SVGFParams
+from raymarchdenoiser.ops.atrous import (
     atrous_level_ref,
     svgf_spatial_ref,
     variance_blur3x3,
@@ -118,9 +118,8 @@ def test_dilation_increases_footprint():
 
 def test_pyramid_deep_levels_mode():
     """pyramid_from (round-5 experiment, CLOSED — failed the two-scene
-    quality gate at −0.48/−0.60 dB, ROADMAP): the oracle mode still runs,
-    smooths like the full-res sweep on flat regions, and the kernel path
-    refuses it loudly."""
+    quality gate at −0.48/−0.60 dB, ROADMAP): the oracle mode still runs
+    and smooths like the full-res sweep on flat regions."""
     rng = np.random.default_rng(3)
     color, variance, normal, depth = _flat_scene(64, 64, rng)
     params = SVGFParams(iterations=5, radius=1, pyramid_from=3)
@@ -133,13 +132,6 @@ def test_pyramid_deep_levels_mode():
     # flat scene: both sweeps smooth heavily and agree closely
     assert np.asarray(out_c).std() < np.asarray(color).std() * 0.5
     assert np.abs(np.asarray(out_c) - np.asarray(full_c)).max() < 0.2
-
-    from raymarchdenoisercuda_tpu.ops.pallas.atrous_tpu import (
-        svgf_spatial_pallas)
-
-    with pytest.raises(NotImplementedError, match="pyramid_from"):
-        svgf_spatial_pallas(color, variance, normal, depth, params=params,
-                            interpret=True)
 
 
 def test_pyramid_requires_fullres_feedback():

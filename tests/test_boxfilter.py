@@ -9,8 +9,8 @@ had (its tests assert nothing — SURVEY.md §4).
 import numpy as np
 import pytest
 
-from raymarchdenoisercuda_tpu.io import native
-from raymarchdenoisercuda_tpu.ops.boxfilter import box_filter, box_filter_u8
+from raymarchdenoiser.io import native
+from raymarchdenoiser.ops.boxfilter import box_filter, box_filter_u8
 
 needs_native = pytest.mark.skipif(not native.available(), reason="native lib not built")
 
@@ -37,7 +37,7 @@ def test_u8_parity_vs_cpp_oracle(rng, radius, depth, quirk):
 
 @needs_native
 def test_u8_parity_cornell(cornell_frame):
-    from raymarchdenoisercuda_tpu.io.image import from_planar_float
+    from raymarchdenoiser.io.image import from_planar_float
 
     img = from_planar_float(np.asarray(cornell_frame.render))
     want = native.box_filter_u8(img, 2, 1, False)
@@ -65,3 +65,38 @@ def test_float_box_filter_constant_preserved():
     x = np.full((1, 24, 40), 0.625, np.float32)
     y = np.asarray(box_filter(x, radius=3, depth=4))
     np.testing.assert_allclose(y, x, rtol=1e-6)
+
+
+def _box_direct(x, radius, depth):
+    """Iterated (2r+1)^2 mean over in-image taps, float64 NumPy."""
+    x = x.astype(np.float64)
+    H, W = x.shape[-2:]
+    r = radius
+    for _ in range(depth):
+        xp = np.pad(x, [(0, 0), (r, r), (r, r)])
+        m = np.pad(np.ones((H, W)), r)
+        num = np.zeros_like(x)
+        cnt = np.zeros((H, W))
+        for dy in range(2 * r + 1):
+            for dx in range(2 * r + 1):
+                num += xp[:, dy:dy + H, dx:dx + W]
+                cnt += m[dy:dy + H, dx:dx + W]
+        x = num / cnt
+    return x
+
+
+@pytest.mark.parametrize("radius,depth", [(2, 1), (1, 2), (2, 3)])
+def test_float_box_filter_iterated_matches_direct(rng, radius, depth):
+    x = rng.random((3, 40, 48), dtype=np.float32)
+    got = np.asarray(box_filter(x, radius=radius, depth=depth))
+    np.testing.assert_allclose(got, _box_direct(x, radius, depth),
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_float_box_filter_tall_image(rng):
+    """A tall single-channel image (300 rows): the running sums stay exact
+    far from the first row."""
+    x = rng.random((1, 300, 64), dtype=np.float32)
+    got = np.asarray(box_filter(x, radius=2, depth=2))
+    np.testing.assert_allclose(got, _box_direct(x, 2, 2), rtol=1e-5,
+                               atol=1e-6)

@@ -4,9 +4,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from raymarchdenoisercuda_tpu.config import FilterParams, FilterType
-from raymarchdenoisercuda_tpu.gbuffer import GBuffer
-from raymarchdenoisercuda_tpu.ops.filters import (
+from raymarchdenoiser.config import FilterParams, FilterType
+from raymarchdenoiser.gbuffer import GBuffer
+from raymarchdenoiser.ops.filters import (
     apply_filter,
     gaussian_filter,
     cross_bilateral_filter,
@@ -89,10 +89,10 @@ def test_filter_level_offsets_atrous_start(rng):
     """FilterParams.level (reference filter.cuh:14, unused there) starts the
     à-trous dilation at 2^level: level=1/depth=1 equals a direct level-1
     atrous application, and differs from level=0."""
-    from raymarchdenoisercuda_tpu.config import FilterParams, FilterType, SVGFParams
-    from raymarchdenoisercuda_tpu.gbuffer import GBuffer
-    from raymarchdenoisercuda_tpu.ops.filters import apply_filter
-    from raymarchdenoisercuda_tpu.ops.atrous import atrous_level_ref
+    from raymarchdenoiser.config import FilterParams, FilterType, SVGFParams
+    from raymarchdenoiser.gbuffer import GBuffer
+    from raymarchdenoiser.ops.filters import apply_filter
+    from raymarchdenoiser.ops.atrous import atrous_level_ref
 
     H = W = 32
     color = jnp.asarray(rng.random((3, H, W), dtype=np.float32))
@@ -115,9 +115,9 @@ def test_filter_level_offsets_atrous_start(rng):
 
 
 def test_filter_level_rejected_for_non_wavelet():
-    from raymarchdenoisercuda_tpu.config import FilterParams, FilterType
-    from raymarchdenoisercuda_tpu.gbuffer import GBuffer
-    from raymarchdenoisercuda_tpu.ops.filters import apply_filter
+    from raymarchdenoiser.config import FilterParams, FilterType
+    from raymarchdenoiser.gbuffer import GBuffer
+    from raymarchdenoiser.ops.filters import apply_filter
 
     g = GBuffer(render=jnp.zeros((3, 8, 8)), albedo=jnp.zeros((3, 8, 8)),
                 normal=jnp.zeros((3, 8, 8)), depth=jnp.zeros((8, 8)))
@@ -125,40 +125,79 @@ def test_filter_level_rejected_for_non_wavelet():
         apply_filter(g, FilterParams(type=FilterType.AVERAGE, level=1))
 
 
-def test_gaussian_pallas_parity(rng):
-    """Pallas separable gaussian band kernel == jnp oracle (interpret)."""
-    from raymarchdenoisercuda_tpu.ops.filters import gaussian_filter
-    from raymarchdenoisercuda_tpu.ops.pallas.filters_tpu import (
-        gaussian_filter_pallas)
+def _pad_window(x, r):
+    """(…, H+2r, W+2r) zero-padded copy and the matching validity mask."""
+    H, W = x.shape[-2:]
+    pad = [(0, 0)] * (x.ndim - 2) + [(r, r), (r, r)]
+    m = np.zeros((H + 2 * r, W + 2 * r))
+    m[r:r + H, r:r + W] = 1.0
+    return np.pad(x, pad), m
 
-    x = jnp.asarray(rng.random((3, 40, 72), dtype=np.float32))
+
+def test_gaussian_depths_match_numpy(rng):
+    """Iterated separable gaussian (depths 1 and 2, radius 2) against a
+    float64 NumPy loop with border renormalization per 1-D pass."""
+    import math
+    x = rng.random((3, 40, 72), dtype=np.float32)
+    r, sigma = 2, 2.0
+    t = np.asarray([math.exp(-0.5 * (i / sigma) ** 2)
+                    for i in range(-r, r + 1)])
+    t /= t.sum()
+    H, W = x.shape[-2:]
+
+    def one_axis(v, axis):
+        vp, m = _pad_window(v, r)
+        num = np.zeros_like(v)
+        den = np.zeros((H, W))
+        for i, ti in enumerate(t):
+            oy, ox = (i, r) if axis == 0 else (r, i)
+            num += ti * vp[..., oy:oy + H, ox:ox + W]
+            den += ti * m[oy:oy + H, ox:ox + W]
+        return num / den
+
+    want = x.astype(np.float64)
     for depth in (1, 2):
-        want = gaussian_filter(x, radius=2, sigma=2.0, depth=depth)
-        got = gaussian_filter_pallas(x, radius=2, sigma=2.0, depth=depth,
-                                     interpret=True)
-        np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                                   atol=1e-5)
+        want = one_axis(one_axis(want, 0), 1)
+        got = gaussian_filter(jnp.asarray(x), radius=r, sigma=sigma,
+                              depth=depth)
+        np.testing.assert_allclose(np.asarray(got), want, atol=1e-5)
 
 
-def test_cross_bilateral_pallas_parity(rng):
-    """Pallas cross-bilateral band kernel == jnp oracle (interpret) —
-    completes kernel coverage of the reference FilterType enum
-    (filter.cuh:12)."""
-    from raymarchdenoisercuda_tpu.config import FilterParams, FilterType
-    from raymarchdenoisercuda_tpu.ops.filters import cross_bilateral_filter
-    from raymarchdenoisercuda_tpu.ops.pallas.filters_tpu import (
-        cross_bilateral_pallas)
-
+def test_cross_bilateral_matches_numpy_loop(rng):
+    """Cross-bilateral weights (spatial gaussian x albedo x normal x depth
+    terms) against a float64 per-tap NumPy loop."""
+    import math
     H, W = 40, 72
-    color = jnp.asarray(rng.random((3, H, W), dtype=np.float32))
-    albedo = jnp.asarray(rng.random((3, H, W), dtype=np.float32))
+    color = rng.random((3, H, W), dtype=np.float32)
+    albedo = rng.random((3, H, W), dtype=np.float32)
     n = rng.standard_normal((3, H, W)).astype(np.float32)
     n[2] += 3.0
     n /= np.sqrt((n ** 2).sum(0, keepdims=True))
-    depth = jnp.asarray((0.3 + 0.5 * rng.random((H, W))).astype(np.float32))
+    depth = (0.3 + 0.5 * rng.random((H, W))).astype(np.float32)
     p = FilterParams(type=FilterType.CROSS)
-    want = cross_bilateral_filter(color, albedo, jnp.asarray(n), depth,
-                                  params=p)
-    got = cross_bilateral_pallas(color, albedo, jnp.asarray(n), depth,
-                                 params=p, interpret=True)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want), atol=5e-5)
+    got = cross_bilateral_filter(*map(jnp.asarray, (color, albedo, n, depth)),
+                                 params=p)
+
+    r = p.radius
+    g = np.asarray([math.exp(-0.5 * (i / p.sigma_space) ** 2)
+                    for i in range(-r, r + 1)])
+    g /= g.sum()
+    c64, a64, n64, z64 = (a.astype(np.float64)
+                          for a in (color, albedo, n, depth))
+    cp, m = _pad_window(c64, r)
+    ap, _ = _pad_window(a64, r)
+    npd, _ = _pad_window(n64, r)
+    zp, _ = _pad_window(z64, r)
+    num = np.zeros_like(c64)
+    den = np.zeros((H, W))
+    for dy in range(2 * r + 1):
+        for dx in range(2 * r + 1):
+            win = (Ellipsis, slice(dy, dy + H), slice(dx, dx + W))
+            wa = np.exp(-((a64 - ap[win]) ** 2).sum(0)
+                        / (2 * p.sigma_albedo ** 2))
+            ndot = np.maximum((n64 * npd[win]).sum(0), 1e-20)
+            wz = np.exp(-np.abs(z64 - zp[win]) / p.sigma_depth)
+            w = g[dy] * g[dx] * m[win] * wa * ndot ** p.sigma_normal * wz
+            num += w[None] * cp[win]
+            den += w
+    np.testing.assert_allclose(np.asarray(got), num / den[None], atol=5e-5)

@@ -7,7 +7,7 @@ import os
 import numpy as np
 import pytest
 
-from raymarchdenoisercuda_tpu.io import (
+from raymarchdenoiser.io import (
     ImageIOError,
     load_png,
     save_png,
@@ -42,7 +42,7 @@ def test_planar_conversion_roundtrip(rng):
 
 
 def test_planar_conversion_numpy_vs_native(rng):
-    from raymarchdenoisercuda_tpu.io import native
+    from raymarchdenoiser.io import native
 
     if not native.available():
         pytest.skip("native lib not built")
@@ -65,13 +65,16 @@ def test_cornell_frame_loads(cornell_frame):
     assert np.all(lens < 1.0 + 1e-4)
 
 
-def test_list_frames():
-    frames = list_frames("/root/reference/render", "cornell")
-    assert frames == [1]
+def test_list_frames(tmp_path):
+    from raymarchdenoiser.gbuffer import zeros_gbuffer
+    from raymarchdenoiser.io import save_frame
+
+    save_frame(str(tmp_path), "cornell", 1, zeros_gbuffer(6, 5))
+    assert list_frames(str(tmp_path), "cornell") == [1]
 
 
 def test_save_frame_roundtrip(tmp_path, cornell_frame):
-    from raymarchdenoisercuda_tpu.io import save_frame
+    from raymarchdenoiser.io import save_frame
 
     root = str(tmp_path)
     save_frame(root, "scene", 7, cornell_frame)

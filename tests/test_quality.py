@@ -4,7 +4,7 @@ converged render, not against our own golden images (VERDICT r2 missing #4:
 self-generated goldens catch drift, not absolute correctness).
 
 Small CPU configuration of tools/denoise_quality.py; the full-size numbers
-(256^2, 16 frames, 1024-spp reference, TPU kernels) live in README.md.
+(256^2, 16 frames, 1024-spp reference) live in README.md.
 """
 
 import os
@@ -22,9 +22,9 @@ def quality():
 
     # PSNR gain grows with resolution (the fixed 5-tap à-trous footprint
     # covers proportionally less image): measured +0.8 dB at 128^2,
-    # +2.7 dB at 160^2 (this config), +6.6 dB at 256^2 / 1024-spp on TPU
+    # +2.7 dB at 160^2 (this config), +6.6 dB at 256^2 / 1024-spp
     return run_eval(size=160, frames=8, spp_ref=256, warmup=3,
-                    impl="reference", iterations=4)
+                    iterations=4)
 
 
 @pytest.fixture(scope="module")
@@ -32,7 +32,7 @@ def quality_r1():
     from denoise_quality import run_eval
 
     return run_eval(size=160, frames=8, spp_ref=256, warmup=3,
-                    impl="reference", iterations=5, radius=1)
+                    iterations=5, radius=1)
 
 
 def test_denoiser_improves_psnr(quality):
@@ -66,7 +66,7 @@ def test_denoiser_quality_r1_luma3_mode():
     from denoise_quality import run_eval
 
     q = run_eval(size=160, frames=8, spp_ref=256, warmup=3,
-                 impl="reference", iterations=5, radius=1, luma_only_from=3)
+                 iterations=5, radius=1, luma_only_from=3)
     assert q["psnr_gain_db"] > 2.6, q
     assert q["output_ssim"] > 0.95, q
 
@@ -78,9 +78,9 @@ def quality_clutter_r1():
     # 192² is the smallest size where the clutter scene's PSNR gain is
     # positive on CPU (geometry edges are proportionally huge below that;
     # at 160² the gain measures −1.1 dB while SSIM still improves — the
-    # absolute-quality numbers live in the TPU 256² table, ROADMAP round 5)
+    # absolute-quality numbers live in the README's 256² table)
     return run_eval(size=192, frames=10, spp_ref=256, warmup=4,
-                    impl="reference", iterations=5, radius=1,
+                    iterations=5, radius=1,
                     scene_kind="clutter")
 
 
@@ -89,7 +89,7 @@ def test_denoiser_quality_clutter_scene(quality_clutter_r1):
     """Second-scene regression (round-5 verdict #3: the quality gate rested
     on ONE scene): the r1 headline mode must denoise the 33-primitive
     clutter scene too.  Measured +0.18 dB PSNR / 0.828 -> 0.963 SSIM at
-    this CPU config (TPU 256²: +2.72 dB / 0.9750)."""
+    this CPU config (256² table in the README: +2.72 dB / 0.9750)."""
     assert quality_clutter_r1["psnr_gain_db"] > -0.3, quality_clutter_r1
     assert quality_clutter_r1["output_ssim"] > 0.945, quality_clutter_r1
     assert (quality_clutter_r1["output_ssim"]
@@ -101,13 +101,13 @@ def test_luma_mode_degrades_on_clutter(quality_clutter_r1):
     """Executable record of WHY luma_only_from was demoted to a per-scene
     option (round-5 two-scene gate): on geometry with structure at
     deep-dilation scales, dropping the deep-level depth/normal terms loses
-    real quality (TPU 256²: −0.65 dB / −0.023 SSIM vs r1 full weights;
+    real quality (256² table: −0.65 dB / −0.023 SSIM vs r1 full weights;
     this CPU config: −0.23 dB / −0.027 SSIM).  If this stops showing a
     gap, the default deserves re-adjudication."""
     from denoise_quality import run_eval
 
     q = run_eval(size=192, frames=10, spp_ref=256, warmup=4,
-                 impl="reference", iterations=5, radius=1, luma_only_from=3,
+                 iterations=5, radius=1, luma_only_from=3,
                  scene_kind="clutter")
     assert (q["output_ssim"]
             < quality_clutter_r1["output_ssim"] - 0.015), (

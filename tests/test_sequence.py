@@ -8,10 +8,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from raymarchdenoisercuda_tpu.config import CameraParams, RaymarchParams, SVGFParams
-from raymarchdenoisercuda_tpu.gbuffer import History
-from raymarchdenoisercuda_tpu.models.svgf import svgf_denoise_frame
-from raymarchdenoisercuda_tpu.ops.raymarch import (
+from raymarchdenoiser.config import CameraParams, RaymarchParams, SVGFParams
+from raymarchdenoiser.gbuffer import History
+from raymarchdenoiser.models.svgf import svgf_denoise_frame
+from raymarchdenoiser.ops.raymarch import (
     cornell_scene, cornell_camera, render_gbuffer,
 )
 
@@ -52,9 +52,9 @@ def test_static_sequence_temporal_convergence(clean_ref):
 
 
 def test_generated_dataset_roundtrip(tmp_path):
-    from raymarchdenoisercuda_tpu.io.generate import (
+    from raymarchdenoiser.io.generate import (
         generate_sequence, load_float_frame)
-    from raymarchdenoisercuda_tpu.io.dataset import list_frames, load_frame
+    from raymarchdenoiser.io.dataset import list_frames, load_frame
 
     root = str(tmp_path)
     frames = generate_sequence(
@@ -78,7 +78,7 @@ def test_generated_dataset_roundtrip(tmp_path):
 def test_animated_sequence_temporal_helps(tmp_path):
     """Moving camera: reprojection must still help vs frame-independent
     denoising (config 2 semantics)."""
-    from raymarchdenoisercuda_tpu.io.generate import generate_sequence
+    from raymarchdenoiser.io.generate import generate_sequence
 
     root = str(tmp_path)
     frames = generate_sequence(

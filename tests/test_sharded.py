@@ -1,6 +1,6 @@
 """Multi-device sharding tests on the virtual 8-device CPU mesh.
 
-Validates that the ICI halo-exchange pipeline reproduces the single-device
+Validates that the halo-exchange pipeline reproduces the single-device
 oracle bit-for-bit (up to fp reassociation) for several mesh shapes, and that
 gradients flow through ``ppermute`` transposes (SURVEY.md §4 distributed-test
 implication).
@@ -11,10 +11,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from raymarchdenoisercuda_tpu.config import SVGFParams
-from raymarchdenoisercuda_tpu.ops.atrous import svgf_spatial_ref
-from raymarchdenoisercuda_tpu.parallel.mesh import make_mesh, factor2
-from raymarchdenoisercuda_tpu.parallel.sharded import svgf_spatial_sharded
+from raymarchdenoiser.config import SVGFParams
+from raymarchdenoiser.ops.atrous import svgf_spatial_ref
+from raymarchdenoiser.parallel.mesh import make_mesh, factor2
+from raymarchdenoiser.parallel.sharded import svgf_spatial_sharded
 
 pytestmark = pytest.mark.skipif(
     len(jax.devices()) < 8, reason="needs 8 virtual devices"
@@ -112,18 +112,16 @@ def test_sharded_nondivisible_prime_shape_matches_oracle(rng):
                                rtol=5e-5, atol=1e-6)
 
 
-def test_sharded_nondivisible_pallas_kernels(rng):
-    """Pad-and-mask through the Pallas tile kernels (interpret): the padded
-    tiles' global masks must drop pad pixels exactly like the oracle's
-    dropped taps."""
+def test_sharded_nondivisible_matches_oracle(rng):
+    """Pad-and-mask on a small odd shape: the padded tiles' global masks
+    drop pad pixels exactly like the oracle's dropped taps."""
     color, variance, normal, depth = _scene(rng, 61, 93)
     params = SVGFParams(iterations=2)
     want_c, want_v = svgf_spatial_ref(color, variance, normal, depth,
                                       params=params, detach_weights=True)
     mesh = make_mesh(4)
     got_c, got_v = svgf_spatial_sharded(color, variance, normal, depth,
-                                        mesh=mesh, params=params,
-                                        impl="pallas", interpret=True)
+                                        mesh=mesh, params=params)
     np.testing.assert_allclose(np.asarray(got_c), np.asarray(want_c),
                                rtol=5e-5, atol=1e-5)
     np.testing.assert_allclose(np.asarray(got_v), np.asarray(want_v),
@@ -152,147 +150,80 @@ def test_sharded_gradients_match_oracle(rng):
 
 
 @pytest.mark.parametrize("n_dev", [4, 8])
-def test_sharded_pallas_kernels_match_oracle(rng, n_dev):
-    """The Pallas band kernels running INSIDE shard_map (halo-exchanged
-    tiles + global-coordinate masks via SMEM tile origins) reproduce the
-    single-device oracle (VERDICT round-1 next-step #5)."""
+def test_sharded_five_levels_and_feedback_match_oracle(rng, n_dev):
+    """The default five-level sweep, including the feedback plane the
+    temporal history consumes."""
     color, variance, normal, depth = _scene(rng)
-    params = SVGFParams(iterations=3)
-    want_c, want_v = svgf_spatial_ref(color, variance, normal, depth,
-                                      params=params, detach_weights=True)
-    mesh = make_mesh(n_dev)
-    got_c, got_v = svgf_spatial_sharded(color, variance, normal, depth,
-                                        mesh=mesh, params=params,
-                                        impl="pallas", interpret=True)
-    np.testing.assert_allclose(np.asarray(got_c), np.asarray(want_c),
-                               rtol=5e-5, atol=1e-5)
-    np.testing.assert_allclose(np.asarray(got_v), np.asarray(want_v),
-                               rtol=5e-5, atol=1e-6)
+    params = SVGFParams(feedback_level=1)
+    want = svgf_spatial_ref(color, variance, normal, depth, params=params,
+                            detach_weights=True, return_feedback=True)
+    got = svgf_spatial_sharded(color, variance, normal, depth,
+                               mesh=make_mesh(n_dev), params=params,
+                               return_feedback=True)
+    for name, a, b in zip(["color", "variance", "feedback"], want, got):
+        np.testing.assert_allclose(np.asarray(b), np.asarray(a),
+                                   rtol=5e-5, atol=1e-5, err_msg=name)
 
 
-def test_sharded_pallas_gradients_match_oracle(rng):
-    """Adjoint of the tile kernels + ppermute transpose routes halo
-    gradients across devices identically to the oracle."""
+def test_sharded_variance_gradients_match_oracle(rng):
+    """Gradients w.r.t. color AND variance route their halo parts back to
+    the owning tiles over the ppermute transposes."""
     color, variance, normal, depth = _scene(rng, 48, 48)
     params = SVGFParams(iterations=2)
     mesh = make_mesh(4)
 
-    def loss_ref(c):
-        oc, _ = svgf_spatial_ref(c, variance, normal, depth, params=params,
-                                 detach_weights=True)
-        return jnp.sum(oc ** 2)
+    def loss(fn):
+        def L(c, v):
+            oc, ov = fn(c, v)
+            return jnp.sum(oc ** 2) + jnp.sum(ov * 1.7)
+        return L
 
-    def loss_shard(c):
-        oc, _ = svgf_spatial_sharded(c, variance, normal, depth, mesh=mesh,
-                                     params=params, impl="pallas",
-                                     interpret=True)
-        return jnp.sum(oc ** 2)
-
-    g_ref = jax.grad(loss_ref)(color)
-    g_shard = jax.grad(loss_shard)(color)
-    np.testing.assert_allclose(np.asarray(g_shard), np.asarray(g_ref),
-                               rtol=1e-4, atol=1e-6)
-
-
-@pytest.mark.slow
-@pytest.mark.parametrize("n_dev,iters", [(4, 2), (8, 3)])
-def test_sharded_stored_bwd_matches_oracle(rng, n_dev, iters):
-    """Margin-writing stored-weight canvas adjoint (VERDICT r3 next-step #1):
-    the sharded chained sweep with bwd_impl="stored" matches the oracle's
-    forward at fp-reassociation level and its gradients within the bf16
-    stored-weight quantization (≤1e-3 relative), with halo gradients routed
-    over the refresh transposes."""
-    from jax import shard_map
-    from raymarchdenoisercuda_tpu.parallel.sharded import (
-        svgf_spatial_local, PLANE, PLANES)
-
-    H = W = 48
-    color, variance, normal, depth = _scene(rng, H, W)
-    params = SVGFParams(iterations=iters)
-    mesh = make_mesh(n_dev)
-
-    def run(c, v):
-        fn = shard_map(
-            lambda c, v, n, d: svgf_spatial_local(
-                c, v, n, d, H, W, params=params, impl="pallas",
-                interpret=True, bwd_impl="stored"),
-            mesh=mesh, in_specs=(PLANES, PLANE, PLANES, PLANE),
-            out_specs=(PLANES, PLANE), check_vma=False)
-        return fn(c, v, normal, depth)
-
-    want_c, want_v = svgf_spatial_ref(color, variance, normal, depth,
-                                      params=params, detach_weights=True)
-    got_c, got_v = run(color, variance)
-    np.testing.assert_allclose(np.asarray(got_c), np.asarray(want_c),
-                               rtol=5e-5, atol=1e-4)
-    np.testing.assert_allclose(np.asarray(got_v), np.asarray(want_v),
-                               rtol=5e-5, atol=1e-5)
-
-    def loss_ref(c, v):
-        oc, ov = svgf_spatial_ref(c, v, normal, depth, params=params,
-                                  detach_weights=True)
-        return jnp.sum(oc ** 2) + jnp.sum(ov)
-
-    def loss_st(c, v):
-        oc, ov = run(c, v)
-        return jnp.sum(oc ** 2) + jnp.sum(ov)
-
-    g_ref = jax.grad(loss_ref, argnums=(0, 1))(color, variance)
-    g_st = jax.grad(loss_st, argnums=(0, 1))(color, variance)
-    for name, a, b in zip(["d_color", "d_variance"], g_ref, g_st):
-        scale = float(jnp.abs(a).max())
+    ref = loss(lambda c, v: svgf_spatial_ref(c, v, normal, depth,
+                                             params=params))
+    shd = loss(lambda c, v: svgf_spatial_sharded(c, v, normal, depth,
+                                                 mesh=mesh, params=params))
+    g_ref = jax.grad(ref, argnums=(0, 1))(color, variance)
+    g_shd = jax.grad(shd, argnums=(0, 1))(color, variance)
+    for name, a, b in zip(["d_color", "d_variance"], g_ref, g_shd):
         np.testing.assert_allclose(np.asarray(b), np.asarray(a),
-                                   rtol=0, atol=1.5e-3 * scale, err_msg=name)
+                                   rtol=1e-4, atol=1e-6, err_msg=name)
 
 
 @pytest.mark.parametrize("n_dev", [2, 4, 8])
-def test_sharded_headline_mode_r1_lq3(rng, n_dev):
-    """Round-5 verdict #1: the quality-gated HEADLINE filter mode (radius-1
-    taps + luminance-only weights at levels >= 3, the bench default) runs on
-    the sharded canvas-chained path with the margin-writing stored adjoint —
-    forward parity vs the single-device oracle, gradients within the bf16
-    stored-weight quantization, halos routed over the refresh transposes."""
-    from jax import shard_map
-    from raymarchdenoisercuda_tpu.parallel.sharded import (
-        svgf_spatial_local, PLANE, PLANES)
-
+def test_sharded_r1_luma_mode_matches_oracle(rng, n_dev):
+    """Radius-1 taps with luminance-only weights from level 3: forward and
+    gradients of the sharded sweep match the single-device oracle."""
     H = W = 64
     color, variance, normal, depth = _scene(rng, H, W)
     params = SVGFParams(iterations=5, radius=1, luma_only_from=3)
     mesh = make_mesh(n_dev)
 
     def run(c, v):
-        fn = shard_map(
-            lambda c, v, n, d: svgf_spatial_local(
-                c, v, n, d, H, W, params=params, impl="pallas",
-                interpret=True, bwd_impl="stored"),
-            mesh=mesh, in_specs=(PLANES, PLANE, PLANES, PLANE),
-            out_specs=(PLANES, PLANE), check_vma=False)
-        return fn(c, v, normal, depth)
+        return svgf_spatial_sharded(c, v, normal, depth, mesh=mesh,
+                                    params=params)
 
     want_c, want_v = svgf_spatial_ref(color, variance, normal, depth,
                                       params=params, detach_weights=True)
     got_c, got_v = run(color, variance)
     np.testing.assert_allclose(np.asarray(got_c), np.asarray(want_c),
-                               rtol=5e-5, atol=1e-4)
-    np.testing.assert_allclose(np.asarray(got_v), np.asarray(want_v),
                                rtol=5e-5, atol=1e-5)
+    np.testing.assert_allclose(np.asarray(got_v), np.asarray(want_v),
+                               rtol=5e-5, atol=1e-6)
 
     def loss_ref(c, v):
         oc, ov = svgf_spatial_ref(c, v, normal, depth, params=params,
                                   detach_weights=True)
         return jnp.sum(oc ** 2) + jnp.sum(ov)
 
-    def loss_st(c, v):
+    def loss_sh(c, v):
         oc, ov = run(c, v)
         return jnp.sum(oc ** 2) + jnp.sum(ov)
 
     g_ref = jax.grad(loss_ref, argnums=(0, 1))(color, variance)
-    g_st = jax.grad(loss_st, argnums=(0, 1))(color, variance)
-    for name, a, b in zip(["d_color", "d_variance"], g_ref, g_st):
-        scale = float(jnp.abs(a).max())
+    g_sh = jax.grad(loss_sh, argnums=(0, 1))(color, variance)
+    for name, a, b in zip(["d_color", "d_variance"], g_ref, g_sh):
         np.testing.assert_allclose(np.asarray(b), np.asarray(a),
-                                   rtol=0, atol=1.5e-3 * scale, err_msg=name)
+                                   rtol=1e-4, atol=1e-6, err_msg=name)
 
 
 def test_sharded_oracle_luma_mode_matches_ref(rng):
@@ -311,294 +242,91 @@ def test_sharded_oracle_luma_mode_matches_ref(rng):
                                rtol=5e-5, atol=1e-6)
 
 
-def test_sharded_luma_mode_guards(rng):
-    """luma_only_from raises loudly where unsupported: the per-level
-    multi-hop (halo>tile) kernel fallback and the recompute chained adjoint."""
-    from jax import shard_map
-    from raymarchdenoisercuda_tpu.parallel.sharded import (
-        svgf_spatial_local, svgf_spatial_chained_local, PLANE, PLANES)
-
-    H = W = 32  # 8-dev mesh -> 16x8 tiles; r1i5 halo 16 > 8 -> multi-hop
-    color, variance, normal, depth = _scene(rng, H, W)
-    params = SVGFParams(iterations=5, radius=1, luma_only_from=3)
-    mesh = make_mesh(8)
-
-    def run_levels(c):
-        fn = shard_map(
-            lambda c, v, n, d: svgf_spatial_local(
-                c, v, n, d, H, W, params=params, impl="pallas",
-                interpret=True),
-            mesh=mesh, in_specs=(PLANES, PLANE, PLANES, PLANE),
-            out_specs=(PLANES, PLANE), check_vma=False)
-        return fn(c, variance, normal, depth)
-
-    with pytest.raises(NotImplementedError, match="luma_only_from"):
-        run_levels(color)
-
-    def run_recompute(c):
-        fn = shard_map(
-            lambda c, v, n, d: svgf_spatial_chained_local(
-                c, v, n, d, 64, 64, params=params, interpret=True,
-                bwd_impl="recompute"),
-            mesh=make_mesh(4), in_specs=(PLANES, PLANE, PLANES, PLANE),
-            out_specs=(PLANES, PLANE), check_vma=False)
-        c64 = jnp.tile(c, (1, 2, 2))
-        return fn(c64, jnp.tile(variance, (2, 2)),
-                  jnp.tile(normal, (1, 2, 2)), jnp.tile(depth, (2, 2)))
-
-    with pytest.raises(ValueError, match="bwd_impl='stored'"):
-        run_recompute(color)
+def test_sharded_pyramid_mode_raises(rng):
+    """``pyramid_from`` is a single-device experiment: the sharded sweep
+    refuses it loudly."""
+    color, variance, normal, depth = _scene(rng, 32, 32)
+    with pytest.raises(NotImplementedError, match="pyramid_from"):
+        svgf_spatial_sharded(color, variance, normal, depth,
+                             mesh=make_mesh(4),
+                             params=SVGFParams(iterations=3, pyramid_from=2))
 
 
-def test_history_carry_type_errors(rng):
-    """ADVICE r4: canvas-form pipelines reject a History pytree carry with a
-    targeted message (not an opaque shard_map in_specs mismatch), and
-    init_history_canvas rejects non-mesh-divisible global shapes."""
-    from raymarchdenoisercuda_tpu.config import CameraParams, RaymarchParams
-    from raymarchdenoisercuda_tpu.gbuffer import History
-    from raymarchdenoisercuda_tpu.parallel.sharded import (
-        make_sharded_pipeline, init_history_canvas)
+def test_sharded_pipeline_rejects_nondivisible_shape():
+    from raymarchdenoiser.config import CameraParams, RaymarchParams
+    from raymarchdenoiser.parallel.sharded import make_sharded_pipeline
+
+    with pytest.raises(ValueError, match="does not tile"):
+        make_sharded_pipeline(make_mesh(4), 33, 32,
+                              cam_cfg=CameraParams(width=32, height=33),
+                              rm_params=RaymarchParams(),
+                              svgf_params=SVGFParams())
+
+
+def _small_pipeline_cfg(H, W):
+    from raymarchdenoiser.config import CameraParams, RaymarchParams
+    return dict(cam_cfg=CameraParams(width=W, height=H),
+                rm_params=RaymarchParams(max_steps=16, shadow_steps=8),
+                svgf_params=SVGFParams(iterations=2, max_motion=3))
+
+
+def test_sharded_pipeline_matches_single_device(rng):
+    """make_sharded_pipeline over two frames (frame 2 reprojects through the
+    carried history) equals render_and_denoise on one device: tiles render
+    the full frame's noise and every stencil sees its halo."""
+    from raymarchdenoiser.gbuffer import History
+    from raymarchdenoiser.models.pipeline import render_and_denoise
+    from raymarchdenoiser.ops.raymarch import cornell_scene, cornell_camera
+    from raymarchdenoiser.parallel.sharded import make_sharded_pipeline
 
     H = W = 32
-    mesh = make_mesh(4)
-    sv = SVGFParams(iterations=2, max_motion=3)
-    f_p = make_sharded_pipeline(
-        mesh, H, W, impl="pallas", interpret=True,
-        cam_cfg=CameraParams(width=W, height=H),
-        rm_params=RaymarchParams(max_steps=8, shadow_steps=4),
-        svgf_params=sv)
-    from raymarchdenoisercuda_tpu.ops.raymarch import (cornell_scene,
-                                                       cornell_camera)
-    scene, cam = cornell_scene(), cornell_camera()
-    with pytest.raises(TypeError, match="init_history_canvas"):
-        f_p(scene, cam, cam, History.zeros(H, W), jax.random.PRNGKey(0))
-
-    with pytest.raises(ValueError, match="mesh-divisible"):
-        init_history_canvas(mesh, 33, 32, sv)
-
-
-@pytest.mark.slow
-def test_sharded_train_step_ad_temporal_kernel(rng):
-    """make_sharded_train_step(temporal_impl="pallas_ad"): one optimizer step
-    through raymarch -> differentiable temporal kernel -> SVGF inside
-    shard_map — finite loss, albedo actually updated (interpret mode)."""
-    import optax
-    from raymarchdenoisercuda_tpu.config import CameraParams, RaymarchParams
-    from raymarchdenoisercuda_tpu.gbuffer import History
-    from raymarchdenoisercuda_tpu.ops.raymarch import (cornell_scene,
-                                                       cornell_camera)
-    from raymarchdenoisercuda_tpu.parallel.sharded import (
-        make_sharded_train_step)
-
-    H = W = 32
-    mesh = make_mesh(4)
-    scene = cornell_scene()
-    cfg = CameraParams(width=W, height=H)
-    rm = RaymarchParams(max_steps=8, shadow_steps=4)
-    sv = SVGFParams(iterations=2, max_motion=3)
-    target = jnp.asarray(rng.random((3, H, W), dtype=np.float32))
-    optimizer = optax.adam(1e-2)
-
-    step = make_sharded_train_step(
-        mesh, scene, cornell_camera(), target, optimizer,
-        cam_cfg=cfg, rm_params=rm, svgf_params=sv,
-        temporal_impl="pallas_ad", interpret=True)
-
-    albedo = scene.materials.albedo
-    opt_state = optimizer.init(albedo)
-    hist = History.zeros(H, W)
-    key = jax.random.PRNGKey(0)
-    # frame 1 warms history; frame 2 differentiates through reprojection
-    albedo1, opt_state, hist, key, loss1 = step(albedo, opt_state, hist, key)
-    albedo2, opt_state, hist, key, loss2 = step(albedo1, opt_state, hist, key)
-    assert np.isfinite(float(loss1)) and np.isfinite(float(loss2))
-    assert np.abs(np.asarray(albedo2) - np.asarray(albedo1)).max() > 0
-
-
-@pytest.mark.slow
-def test_temporal_canvas_two_frames_cross_tile_motion(rng):
-    """Canvas-form temporal carry across frames: frame 1 writes a canvas
-    with STALE margins; frame 2's margin refresh must pull the neighbors'
-    frame-1 centers before the gather, so reprojection across tile borders
-    (motion up to max_motion) matches the single-device oracle on both
-    frames."""
-    from jax import shard_map
-    from jax.sharding import PartitionSpec as Pspec
-    from raymarchdenoisercuda_tpu.gbuffer import GBuffer, History
-    from raymarchdenoisercuda_tpu.ops.temporal import temporal_accumulate
-    from raymarchdenoisercuda_tpu.ops.pallas.temporal_tpu import (
-        hist_canvas_geometry)
-    from raymarchdenoisercuda_tpu.parallel.sharded import (
-        temporal_accumulate_canvas_local, init_history_canvas,
-        PLANE, PLANES)
-
-    H = W = 48
-    params = SVGFParams(max_motion=4)
-    mesh = make_mesh(4)
-    th, tw = H // 2, W // 2
-    mh, CH, CLm = hist_canvas_geometry(th, tw, params)[:3]
-
-    def frame(seed, mag):
-        color, variance, normal, depth = _scene(rng, H, W)
-        motion = jnp.asarray(
-            (2.0 * np.random.default_rng(seed).random((2, H, W)) - 1.0)
-            .astype(np.float32) * mag)
-        return GBuffer(render=color, albedo=None, normal=normal, depth=depth,
-                       motion=motion)
-
-    g1 = frame(1, 3.5)
-    g2 = frame(2, 3.9).replace(normal=g1.normal, depth=g1.depth)
-
-    # oracle: two standard temporal steps
-    h = History.zeros(H, W)
-    i1o, v1o, h = temporal_accumulate(g1, h, params=params)
-    i2o, v2o, _ = temporal_accumulate(g2, h, params=params)
-
-    def local(c1, m1, c2, m2, nn, d, histC):
-        gb1 = GBuffer(render=c1, albedo=None, normal=nn, depth=d, motion=m1)
-        gb2 = GBuffer(render=c2, albedo=None, normal=nn, depth=d, motion=m2)
-        _, _, histC = temporal_accumulate_canvas_local(
-            gb1, histC, H, W, params=params, interpret=True)
-        i2, v2, _ = temporal_accumulate_canvas_local(
-            gb2, histC, H, W, params=params, interpret=True)
-        return i2, v2
-
-    fn = shard_map(local, mesh=mesh,
-                   in_specs=(PLANES, PLANES, PLANES, PLANES, PLANES, PLANE,
-                             Pspec(None, "y", "x")),
-                   out_specs=(PLANES, PLANE), check_vma=False)
-    i2c, v2c = fn(g1.render, g1.motion, g2.render, g2.motion,
-                  g1.normal, g1.depth, init_history_canvas(mesh, H, W, params))
-    np.testing.assert_allclose(np.asarray(i2c), np.asarray(i2o),
-                               rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(np.asarray(v2c), np.asarray(v2o),
-                               rtol=1e-5, atol=1e-6)
-
-
-def test_sharded_train_step_full_kernel_path(rng):
-    """make_sharded_train_step(impl="pallas"): the complete kernel training
-    route — Pallas raymarch, canvas-form differentiable temporal kernel
-    (history carried as a margin canvas; temporal_impl="auto" ->
-    "pallas_ad_canvas"), chained spatial sweep with the margin-writing
-    STORED adjoint — runs TWO optimizer steps (step 2 consumes the canvas
-    carry written by step 1, exercising the cross-frame margin refresh) with
-    losses matching the oracle-path steps."""
-    import optax
-    from raymarchdenoisercuda_tpu.config import CameraParams, RaymarchParams
-    from raymarchdenoisercuda_tpu.gbuffer import History
-    from raymarchdenoisercuda_tpu.ops.raymarch import (cornell_scene,
-                                                       cornell_camera)
-    from raymarchdenoisercuda_tpu.parallel.sharded import (
-        make_sharded_train_step, init_history_canvas)
-
-    H = W = 32
-    mesh = make_mesh(4)
-    scene = cornell_scene()
-    cfg = CameraParams(width=W, height=H)
-    rm = RaymarchParams(max_steps=8, shadow_steps=4)
-    sv = SVGFParams(iterations=2, max_motion=3)
-    target = jnp.asarray(rng.random((3, H, W), dtype=np.float32))
-    optimizer = optax.sgd(0.0)  # lr 0: compare gradients via loss, not drift
-
-    def two_steps(**kw):
-        step = make_sharded_train_step(
-            mesh, scene, cornell_camera(), target, optimizer,
-            cam_cfg=cfg, rm_params=rm, svgf_params=sv, interpret=True, **kw)
-        albedo = scene.materials.albedo
-        hist = (init_history_canvas(mesh, H, W, sv)
-                if kw.get("impl") == "pallas" else History.zeros(H, W))
-        key = jax.random.PRNGKey(0)
-        albedo, ost, hist, key, loss1 = step(albedo, optimizer.init(albedo),
-                                             hist, key)
-        _, _, _, _, loss2 = step(albedo, ost, hist, key)
-        return float(loss1), float(loss2)
-
-    lk1, lk2 = two_steps(impl="pallas")
-    lo1, lo2 = two_steps(impl="oracle")
-    assert np.isfinite(lk1) and np.isfinite(lk2)
-    # same MC keys + bit-compatible pipelines: losses agree closely
-    assert abs(lk1 - lo1) < 5e-4 * max(abs(lo1), 1e-6), (lk1, lo1)
-    assert abs(lk2 - lo2) < 5e-4 * max(abs(lo2), 1e-6), (lk2, lo2)
-
-
-@pytest.mark.slow
-@pytest.mark.parametrize("n_dev", [4, 8])
-def test_sharded_chained_matches_per_level(rng, n_dev):
-    """Canvas-chained tile sweep == per-level tile kernels (same kernel math,
-    margins refreshed over ICI instead of per-level pad/crop/re-exchange),
-    including the feedback plane the temporal history consumes."""
-    from jax import shard_map
-    from jax.sharding import PartitionSpec as Pspec
-    from raymarchdenoisercuda_tpu.parallel.sharded import (
-        svgf_spatial_local, PLANE, PLANES)
-
-    H = W = 64
-    color, variance, normal, depth = _scene(rng, H, W)
-    params = SVGFParams(iterations=3, feedback_level=1)
-    mesh = make_mesh(n_dev)
-
-    def run(impl):
-        fn = shard_map(
-            lambda c, v, n, d: svgf_spatial_local(
-                c, v, n, d, H, W, params=params, return_feedback=True,
-                impl=impl, interpret=True),
-            mesh=mesh, in_specs=(PLANES, PLANE, PLANES, PLANE),
-            out_specs=(PLANES, PLANE, PLANES), check_vma=False)
-        return fn(color, variance, normal, depth)
-
-    want = run("pallas_levels")
-    got = run("pallas")
-    for name, a, b in zip(["color", "variance", "feedback"], want, got):
-        np.testing.assert_allclose(np.asarray(b), np.asarray(a),
-                                   rtol=2e-5, atol=1e-6, err_msg=name)
-
-
-@pytest.mark.slow
-def test_sharded_pipeline_kernel_route_matches_oracle(rng):
-    """make_sharded_pipeline(impl="pallas") routes raymarch + temporal +
-    spatial through the TPU kernels (regression: the raymarch impl was once
-    silently dropped inside pipeline_local, leaving the 64-step jnp march
-    in the sharded frame — found by profiling, 29 -> 16 ms at 1080p)."""
-    from raymarchdenoisercuda_tpu.config import CameraParams, RaymarchParams
-    from raymarchdenoisercuda_tpu.gbuffer import History
-    from raymarchdenoisercuda_tpu.ops.raymarch import (cornell_scene,
-                                                       cornell_camera)
-    from raymarchdenoisercuda_tpu.parallel.sharded import (
-        make_sharded_pipeline, init_history_canvas)
-
-    H = W = 32
-    mesh = make_mesh(4)
-    sv = SVGFParams(iterations=2, max_motion=3)
-    kw = dict(cam_cfg=CameraParams(width=W, height=H),
-              rm_params=RaymarchParams(max_steps=16, shadow_steps=8),
-              svgf_params=sv)
-    f_o = make_sharded_pipeline(mesh, H, W, impl="oracle", **kw)
-    # "auto" on the kernel path = the canvas-form fused temporal step; the
-    # full-exchange tile path keeps coverage via the A/B below
-    f_p = make_sharded_pipeline(mesh, H, W, impl="pallas", interpret=True,
-                                **kw)
-    f_p2 = make_sharded_pipeline(mesh, H, W, impl="pallas", interpret=True,
-                                 temporal_impl="pallas", **kw)
+    kw = _small_pipeline_cfg(H, W)
+    f_sh = make_sharded_pipeline(make_mesh(4), H, W, **kw)
     scene, cam = cornell_scene(), cornell_camera()
     key = jax.random.PRNGKey(0)
-    ho = hp2 = History.zeros(H, W)
-    hp = init_history_canvas(mesh, H, W, sv)
-    for _ in range(2):   # frame 2 exercises reprojection through history
-        go, ho = f_o(scene, cam, cam, ho, key)
-        gp, hp = f_p(scene, cam, cam, hp, key)
-        gp2, hp2 = f_p2(scene, cam, cam, hp2, key)
-    do, dp = np.asarray(go.denoised), np.asarray(gp.denoised)
-    dp2 = np.asarray(gp2.denoised)
-    assert np.isfinite(dp).all()
-    assert np.abs(do - dp).max() < 2e-3
-    assert np.abs(do - dp2).max() < 2e-3
+    h1 = h4 = History.zeros(H, W)
+    for _ in range(2):
+        g1, h1 = render_and_denoise(scene, cam, cam, h1, key, **kw)
+        g4, h4 = f_sh(scene, cam, cam, h4, key)
+    d1, d4 = np.asarray(g1.denoised), np.asarray(g4.denoised)
+    assert np.isfinite(d4).all()
+    np.testing.assert_allclose(d4, d1, rtol=1e-4, atol=1e-4)
+
+
+def test_sharded_train_step_matches_single_device(rng):
+    """Two Adam steps of make_sharded_train_step (step 2 consumes the
+    carried history) track make_train_step on one device: same losses and
+    the same updated albedo table."""
+    import optax
+    from raymarchdenoiser.models.pipeline import (init_train_state,
+                                                  make_train_step)
+    from raymarchdenoiser.ops.raymarch import cornell_scene, cornell_camera
+    from raymarchdenoiser.parallel.sharded import make_sharded_train_step
+
+    H = W = 32
+    kw = _small_pipeline_cfg(H, W)
+    scene, cam = cornell_scene(), cornell_camera()
+    target = jnp.asarray(rng.random((3, H, W), dtype=np.float32))
+    opt = optax.adam(1e-2)
+
+    step1 = make_train_step(scene, cam, target, opt, **kw)
+    st = init_train_state(scene.materials.albedo, opt, H, W,
+                          jax.random.PRNGKey(0))
+    step4 = make_sharded_train_step(make_mesh(4), scene, cam, target, opt,
+                                    **kw)
+    a4, o4, h4, k4 = st.albedo, st.opt_state, st.history, st.key
+    for _ in range(2):
+        st, l1 = step1(st)
+        a4, o4, h4, k4, l4 = step4(a4, o4, h4, k4)
+        assert abs(float(l4) - float(l1)) <= 1e-4 * abs(float(l1)), (l4, l1)
+    np.testing.assert_allclose(np.asarray(a4), np.asarray(st.albedo),
+                               rtol=1e-4, atol=1e-5)
 
 
 def test_sharded_luma_mode_composes_with_pad_and_mask(rng):
-    """Round-5 composition corner: the r1+luma per-scene mode through the
-    chained stored kernels AND a non-mesh-divisible global shape (pad-and-
-    mask) at once — the padded tiles' global masks and the luma levels'
-    weight-agnostic stored path must not interfere."""
+    """The r1+luma per-scene mode AND a non-mesh-divisible global shape
+    (pad-and-mask) at once: the padded tiles' global masks and the luma
+    levels must not interfere."""
     H, W = 67, 45
     color, variance, normal, depth = _scene(rng, H, W)
     params = SVGFParams(iterations=5, radius=1, luma_only_from=3)
@@ -606,8 +334,7 @@ def test_sharded_luma_mode_composes_with_pad_and_mask(rng):
                                       params=params, detach_weights=True)
     mesh = make_mesh(4)
     got_c, got_v = svgf_spatial_sharded(color, variance, normal, depth,
-                                        mesh=mesh, params=params,
-                                        impl="pallas", interpret=True)
+                                        mesh=mesh, params=params)
     np.testing.assert_allclose(np.asarray(got_c), np.asarray(want_c),
                                rtol=5e-5, atol=1e-4)
     np.testing.assert_allclose(np.asarray(got_v), np.asarray(want_v),

@@ -4,9 +4,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from raymarchdenoisercuda_tpu import History, SVGFParams
-from raymarchdenoisercuda_tpu.gbuffer import GBuffer
-from raymarchdenoisercuda_tpu.models.svgf import (
+from raymarchdenoiser import History, SVGFParams
+from raymarchdenoiser.gbuffer import GBuffer
+from raymarchdenoiser.models.svgf import (
     svgf_denoise_frame,
     svgf_denoise_sequence,
     demodulate,

@@ -6,10 +6,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from raymarchdenoisercuda_tpu.config import SVGFParams
-from raymarchdenoisercuda_tpu.gbuffer import GBuffer, History
-from raymarchdenoisercuda_tpu.ops.temporal import (
+from raymarchdenoiser.config import SVGFParams
+from raymarchdenoiser.gbuffer import GBuffer, History
+from raymarchdenoiser.ops.temporal import (
     bilinear_gather,
+    bilinear_shift_sample_many,
     temporal_accumulate,
     spatial_moments,
 )
@@ -109,8 +110,8 @@ def test_spatial_moments_constant():
 def test_sharded_temporal_matches_single(rng):
     from jax.sharding import PartitionSpec as Pspec
     from jax import shard_map
-    from raymarchdenoisercuda_tpu.parallel.mesh import make_mesh
-    from raymarchdenoisercuda_tpu.parallel.sharded import (
+    from raymarchdenoiser.parallel.mesh import make_mesh
+    from raymarchdenoiser.parallel.sharded import (
         temporal_accumulate_local, PLANE, PLANES,
     )
 
@@ -150,8 +151,8 @@ def test_sharded_temporal_boundary_motion_parity(rng, mag):
     the boundary magnitudes the round-1 suite missed (VERDICT weak #3):
     with max_motion=6, magnitudes 5/5.5/6 accept history, 6.5/7/8 reject."""
     from jax import shard_map
-    from raymarchdenoisercuda_tpu.parallel.mesh import make_mesh
-    from raymarchdenoisercuda_tpu.parallel.sharded import (
+    from raymarchdenoiser.parallel.mesh import make_mesh
+    from raymarchdenoiser.parallel.sharded import (
         temporal_accumulate_local, PLANE, PLANES,
     )
 
@@ -189,7 +190,7 @@ def test_sharded_temporal_boundary_motion_parity(rng, mag):
 
 def test_sharded_temporal_unbounded_motion_raises(rng):
     """max_motion=None (exact gather) cannot be halo-exchanged — loud error."""
-    from raymarchdenoisercuda_tpu.parallel.sharded import temporal_accumulate_local
+    from raymarchdenoiser.parallel.sharded import temporal_accumulate_local
 
     g = _gbuf(rng, 16, 16)
     hist = _warm_history(g)
@@ -198,56 +199,70 @@ def test_sharded_temporal_unbounded_motion_raises(rng):
                                   params=SVGFParams(max_motion=None))
 
 
-@pytest.mark.parametrize("mdesc,make_motion", [
+_MOTIONS = [
     ("zero", lambda H, W: jnp.zeros((2, H, W))),
     ("uniform_frac", lambda H, W: jnp.zeros((2, H, W)).at[0].set(1.3).at[1].set(-2.7)),
     ("varying", lambda H, W: jnp.stack([
         jnp.linspace(-5.5, 5.5, H)[:, None] * jnp.ones((1, W)),
         jnp.linspace(5.5, -5.5, W)[None, :] * jnp.ones((H, 1))])),
     ("over_limit", lambda H, W: jnp.zeros((2, H, W)).at[0].set(7.2)),
-])
-def test_temporal_pallas_kernel_parity(rng, mdesc, make_motion):
-    """Fused Pallas temporal kernel (dynamic per-band offset ranges) is
-    bit-comparable to temporal_accumulate (interpret mode)."""
-    from raymarchdenoisercuda_tpu.ops.pallas.temporal_tpu import (
-        temporal_accumulate_pallas)
+]
 
-    H, W = 48, 160
+
+@pytest.mark.parametrize("mdesc,make_motion", _MOTIONS)
+def test_bounded_shift_matches_gather(rng, mdesc, make_motion):
+    """The bounded-shift reprojection (``max_motion=6``) equals the exact
+    gather (``max_motion=None``) wherever |motion| <= 6; beyond the bound
+    the history counts as disoccluded (output = current color, length 1)."""
+    H, W = 48, 80
     g = _gbuf(rng, H, W, motion=make_motion(H, W))
     hist = _warm_history(g).replace(
         color=jnp.asarray(rng.random((3, H, W), dtype=np.float32)))
-    params = SVGFParams()
 
-    wi, wv, wh = temporal_accumulate(g, hist, params=params)
-    gi, gv, gh = temporal_accumulate_pallas(g, hist, params=params,
-                                            interpret=True)
-    np.testing.assert_allclose(np.asarray(gi), np.asarray(wi), atol=1e-6)
-    np.testing.assert_allclose(np.asarray(gv), np.asarray(wv), atol=1e-6)
-    np.testing.assert_allclose(np.asarray(gh.moments), np.asarray(wh.moments),
-                               atol=1e-6)
-    np.testing.assert_array_equal(np.asarray(gh.length),
-                                  np.asarray(wh.length))
+    si, sv, sh = temporal_accumulate(g, hist, params=SVGFParams(max_motion=6))
+    gi, gv, gh = temporal_accumulate(g, hist,
+                                     params=SVGFParams(max_motion=None))
+    if mdesc == "over_limit":
+        np.testing.assert_array_equal(np.asarray(si), np.asarray(g.render))
+        assert float(np.asarray(sh.length).max()) == 1.0
+        assert float(np.asarray(gh.length).max()) > 1.0  # gather accepts it
+        return
+    # the tent weight 1-|m-d| and the gather's fraction (y+m)-floor(y+m)
+    # round differently: a few ulps of the pixel coordinate
+    np.testing.assert_allclose(np.asarray(si), np.asarray(gi), atol=1e-5)
+    np.testing.assert_allclose(np.asarray(sv), np.asarray(gv), atol=1e-5)
+    np.testing.assert_allclose(np.asarray(sh.moments), np.asarray(gh.moments),
+                               atol=1e-5)
+    np.testing.assert_allclose(np.asarray(sh.length), np.asarray(gh.length),
+                               atol=1e-5)
 
 
-def test_temporal_pallas_requires_bounded_motion(rng):
-    from raymarchdenoisercuda_tpu.ops.pallas.temporal_tpu import (
-        temporal_accumulate_pallas)
-
-    g = _gbuf(rng, 16, 16)
-    with pytest.raises(ValueError, match="max_motion"):
-        temporal_accumulate_pallas(g, _warm_history(g),
-                                   params=SVGFParams(max_motion=None))
+def test_shift_sample_marks_over_limit_motion(rng):
+    """``bilinear_shift_sample_many`` flags |motion| > max_motion as outside
+    its window, and samples exactly like the gather inside it."""
+    H, W = 16, 20
+    x = jnp.asarray(rng.random((3, H, W), dtype=np.float32))
+    motion = jnp.zeros((2, H, W)).at[1, :, :10].set(3.5).at[0, :, 10:].set(-4.5)
+    (out,), within = bilinear_shift_sample_many([x], motion, 4)
+    within = np.asarray(within)
+    assert within[:, :10].all() and not within[:, 10:].any()
+    want = bilinear_gather(x, jnp.arange(H, dtype=jnp.float32)[:, None]
+                           + motion[0], jnp.arange(W, dtype=jnp.float32)
+                           + motion[1])
+    # in-window columns whose sample stays inside the image
+    np.testing.assert_allclose(np.asarray(out)[:, :, :6],
+                               np.asarray(want)[:, :, :6], atol=1e-5)
 
 
 @pytest.mark.skipif(len(jax.devices()) < 4, reason="needs 4 devices")
 @pytest.mark.parametrize("mag", [1.3, 6.5])
-def test_sharded_temporal_pallas_kernel_parity(rng, mag):
-    """The fused temporal band kernel inside shard_map (halo-exchanged
-    tiles, global-coordinate masks) matches the single-device oracle —
-    accepted and rejected (boundary) motion magnitudes."""
+def test_sharded_temporal_local_parity(rng, mag):
+    """The tile-local temporal step inside shard_map (halo-exchanged tiles,
+    global-coordinate masks) matches the single-device step — accepted and
+    rejected (over the bound) motion magnitudes."""
     from jax import shard_map
-    from raymarchdenoisercuda_tpu.parallel.mesh import make_mesh
-    from raymarchdenoisercuda_tpu.parallel.sharded import (
+    from raymarchdenoiser.parallel.mesh import make_mesh
+    from raymarchdenoiser.parallel.sharded import (
         temporal_accumulate_local, PLANE, PLANES,
     )
 
@@ -266,8 +281,7 @@ def test_sharded_temporal_pallas_kernel_parity(rng, mag):
     h_specs = History(color=PLANES, moments=PLANES, length=PLANE,
                       prev_depth=PLANE, prev_normal=PLANES)
     fn = shard_map(
-        lambda gb, h: temporal_accumulate_local(
-            gb, h, H, W, params=params, impl="pallas", interpret=True),
+        lambda gb, h: temporal_accumulate_local(gb, h, H, W, params=params),
         mesh=mesh, in_specs=(gb_specs, h_specs),
         out_specs=(PLANES, PLANE, h_specs), check_vma=False)
     got_c, got_v, got_h = fn(g.replace(denoised=None), hist)
@@ -302,228 +316,81 @@ def _rand_gbuf_hist(rng, H=40, W=48):
     return g, hist
 
 
-def test_temporal_ad_forward_parity_interpret(rng):
-    """Differentiable temporal kernel (Pallas tent gather + shared oracle
-    epilogue) is bit-exact vs temporal_accumulate in the forward (round-2
-    verdict item #2: the last jnp-only stage on the training path)."""
-    from raymarchdenoisercuda_tpu.ops.pallas.temporal_tpu import (
-        temporal_accumulate_pallas_ad)
-
+def test_temporal_random_motion_paths_agree(rng):
+    """Random sub-pixel motion (|m| < 4) with random history: the
+    bounded-shift and gather reprojections give the same step."""
     g, hist = _rand_gbuf_hist(rng)
-    params = SVGFParams(max_motion=6)
-    a = temporal_accumulate(g, hist, params=params)
-    b = temporal_accumulate_pallas_ad(g, hist, params=params, interpret=True)
-    np.testing.assert_array_equal(np.asarray(a[0]), np.asarray(b[0]))
-    np.testing.assert_array_equal(np.asarray(a[1]), np.asarray(b[1]))
-    np.testing.assert_array_equal(np.asarray(a[2].color), np.asarray(b[2].color))
-    np.testing.assert_array_equal(np.asarray(a[2].moments), np.asarray(b[2].moments))
-    np.testing.assert_array_equal(np.asarray(a[2].length), np.asarray(b[2].length))
+    a = temporal_accumulate(g, hist, params=SVGFParams(max_motion=6))
+    b = temporal_accumulate(g, hist, params=SVGFParams(max_motion=None))
+    # tolerance: see test_bounded_shift_matches_gather
+    np.testing.assert_allclose(np.asarray(a[0]), np.asarray(b[0]), atol=1e-5)
+    np.testing.assert_allclose(np.asarray(a[1]), np.asarray(b[1]), atol=1e-5)
+    np.testing.assert_allclose(np.asarray(a[2].moments),
+                               np.asarray(b[2].moments), atol=1e-5)
+    np.testing.assert_allclose(np.asarray(a[2].length),
+                               np.asarray(b[2].length), atol=1e-5)
 
 
-@pytest.mark.slow
-def test_temporal_ad_gradient_parity_interpret(rng):
-    """jax.grad through the ad kernel == oracle autodiff for every
-    differentiable input (render, history color/moments/length, motion) —
-    the hand-written adjoint is the transposed tent scatter plus the
-    tent-derivative motion term, matching JAX's kink conventions."""
-    from raymarchdenoisercuda_tpu.ops.pallas.temporal_tpu import (
-        temporal_accumulate_pallas_ad)
-
-    g, hist = _rand_gbuf_hist(rng)
-    params = SVGFParams(max_motion=6)
-
-    def loss(fn, interp):
-        def L(render, hc, hm, hl, mot):
-            gg = g.replace(render=render, motion=mot)
-            hh = hist.replace(color=hc, moments=hm, length=hl)
-            kw = {"interpret": True} if interp else {}
-            i, v, nh = fn(gg, hh, params=params, **kw)
-            return (jnp.sum(i ** 2) + jnp.sum(v * 1.3)
-                    + jnp.sum(nh.color * 0.7) + jnp.sum(nh.moments * 0.3)
-                    + jnp.sum(nh.length * 0.1))
-        return L
-
-    args = (g.render, hist.color, hist.moments, hist.length, g.motion)
-    ga = jax.grad(loss(temporal_accumulate, False), argnums=(0, 1, 2, 3, 4))(*args)
-    gb = jax.grad(loss(temporal_accumulate_pallas_ad, True),
-                  argnums=(0, 1, 2, 3, 4))(*args)
-    names = ["d_render", "d_hist_color", "d_hist_moments", "d_hist_length",
-             "d_motion"]
-    for name, x, y in zip(names, ga, gb):
-        np.testing.assert_allclose(np.asarray(y), np.asarray(x),
-                                   rtol=1e-5, atol=1e-6, err_msg=name)
-        assert np.abs(np.asarray(x)).max() > 0, f"{name} trivially zero"
-
-
-def test_reproject_gather_hist_only_adjoint(rng):
-    """motion_grad=False (the material-only training fast path): d_hist
-    matches the full adjoint at fp-reassociation level and d_motion is
-    exactly zero (the dead gradient it skips computing)."""
-    import jax.numpy as jnp
-    from raymarchdenoisercuda_tpu.ops.pallas.temporal_tpu import (
-        _reproject_gather)
-
-    H, W = 40, 56
-    hist = jnp.asarray(rng.random((10, H, W), dtype=np.float32))
+def test_shift_sample_adjoint_matches_gather_adjoint(rng):
+    """Gradients of the bounded-shift sampler w.r.t. the history planes and
+    the motion equal those of the gather (where motion is inside both the
+    bound and the image)."""
+    H, W = 24, 28
+    hist = jnp.asarray(rng.random((4, H, W), dtype=np.float32))
     motion = jnp.asarray(
-        (2.0 * rng.random((2, H, W)) - 1.0).astype(np.float32) * 4.0)
-    params = SVGFParams()
-    wt = jnp.asarray(rng.random((10, H, W), dtype=np.float32))
+        (2.0 * rng.random((2, H, W)) - 1.0).astype(np.float32) * 2.5)
+    wt = jnp.asarray(rng.random((4, H, W), dtype=np.float32))
+    iy = jnp.arange(H, dtype=jnp.float32)[:, None]
+    ix = jnp.arange(W, dtype=jnp.float32)[None, :]
+    inside = np.asarray((iy + motion[0] >= 0) & (iy + motion[0] <= H - 1)
+                        & (ix + motion[1] >= 0) & (ix + motion[1] <= W - 1))
 
-    def loss(h, m, mg):
-        g = _reproject_gather(h, m, params, True, mg)
-        return jnp.sum(wt * g)
+    def loss_shift(h, m):
+        (s,), _ = bilinear_shift_sample_many([h], m, 3)
+        return jnp.sum(wt * s * inside)
 
-    gh_full, gm_full = jax.grad(loss, argnums=(0, 1))(hist, motion, True)
-    gh_ho, gm_ho = jax.grad(loss, argnums=(0, 1))(hist, motion, False)
-    np.testing.assert_allclose(np.asarray(gh_ho), np.asarray(gh_full),
-                               rtol=1e-5, atol=1e-6)
-    assert float(jnp.abs(gm_ho).max()) == 0.0
-    assert float(jnp.abs(gm_full).max()) > 0.0  # the full adjoint is live
+    def loss_gather(h, m):
+        s = bilinear_gather(h, iy + m[0], ix + m[1])
+        return jnp.sum(wt * s * inside)
 
-
-@pytest.mark.slow
-def test_train_step_pallas_temporal_ad(rng):
-    """make_train_step(impl='pallas') now differentiates through the
-    temporal kernel (BASELINE config 4 on the full kernel path): loss is
-    finite and albedo receives nonzero gradients (interpret mode)."""
-    import optax
-    from raymarchdenoisercuda_tpu.config import CameraParams, RaymarchParams
-    from raymarchdenoisercuda_tpu.models.pipeline import (
-        render_and_denoise)
-    from raymarchdenoisercuda_tpu.ops.raymarch import cornell_scene, cornell_camera
-    from raymarchdenoisercuda_tpu.gbuffer import History as Hist
-
-    H = W = 48
-    scene = cornell_scene()
-    cfg = CameraParams(width=W, height=H)
-    rm = RaymarchParams(max_steps=32, shadow_steps=16)
-    sv = SVGFParams(iterations=2, max_motion=4)
-    target = jnp.asarray(rng.random((3, H, W), dtype=np.float32))
-
-    def loss_fn(albedo, history):
-        s = scene.replace(materials=scene.materials.replace(albedo=albedo))
-        out, nh = render_and_denoise(
-            s, cornell_camera(), cornell_camera(), history,
-            jax.random.PRNGKey(0), cam_cfg=cfg, rm_params=rm, svgf_params=sv,
-            impl="pallas", temporal="ad")
-        return jnp.mean((out.denoised - target) ** 2), nh
-
-    from jax.experimental.pallas import tpu as pltpu
-
-    hist = Hist.zeros(H, W)
-    # run one frame to warm the history, then differentiate through frame 2
-    with pltpu.force_tpu_interpret_mode():
-        _, hist = loss_fn(scene.materials.albedo, hist)
-        (val, _nh), grads = jax.value_and_grad(loss_fn, has_aux=True)(
-            scene.materials.albedo, hist)
-    assert np.isfinite(float(val))
-    gn = np.asarray(grads)
-    assert np.isfinite(gn).all()
-    assert np.abs(gn[:3]).max() > 0
+    gs = jax.grad(loss_shift, argnums=(0, 1))(hist, motion)
+    gg = jax.grad(loss_gather, argnums=(0, 1))(hist, motion)
+    for a, b in zip(gs, gg):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
+                                   rtol=1e-5, atol=1e-5)
+    assert float(jnp.abs(gs[1]).max()) > 0.0  # the motion gradient is live
 
 
-@pytest.mark.slow
-@pytest.mark.skipif(len(jax.devices()) < 4, reason="needs 4 devices")
-def test_sharded_temporal_ad_forward_parity(rng):
-    """impl="pallas_ad" inside shard_map: the differentiable tent-gather
-    kernel on halo-exchanged tiles matches the single-device oracle —
-    the sharded training path's temporal kernel route."""
-    from jax import shard_map
-    from raymarchdenoisercuda_tpu.parallel.mesh import make_mesh
-    from raymarchdenoisercuda_tpu.parallel.sharded import (
-        temporal_accumulate_local, PLANE, PLANES,
-    )
-
-    H = W = 32
-    motion = jnp.zeros((2, H, W)).at[1].set(2.25).at[0].set(-1.5)
-    g = _gbuf(rng, H, W, motion=motion)
-    hist = _warm_history(g).replace(
-        color=jnp.asarray(rng.random((3, H, W), dtype=np.float32)))
-    params = SVGFParams(history_clamp=True, max_motion=4)
-
-    want_c, want_v, want_h = temporal_accumulate(g, hist, params=params)
-
-    mesh = make_mesh(4)
-    gb_specs = GBuffer(render=PLANES, albedo=PLANES, normal=PLANES,
-                       depth=PLANE, motion=PLANES, denoised=None)
-    h_specs = History(color=PLANES, moments=PLANES, length=PLANE,
-                      prev_depth=PLANE, prev_normal=PLANES)
-    fn = shard_map(
-        lambda gb, h: temporal_accumulate_local(
-            gb, h, H, W, params=params, impl="pallas_ad", interpret=True),
-        mesh=mesh, in_specs=(gb_specs, h_specs),
-        out_specs=(PLANES, PLANE, h_specs), check_vma=False)
-    got_c, got_v, got_h = fn(g.replace(denoised=None), hist)
-
-    np.testing.assert_allclose(np.asarray(got_c), np.asarray(want_c),
-                               rtol=1e-5, atol=1e-6)
-    np.testing.assert_allclose(np.asarray(got_v), np.asarray(want_v),
-                               rtol=1e-5, atol=1e-6)
-    np.testing.assert_allclose(np.asarray(got_h.length),
-                               np.asarray(want_h.length))
-
-
-@pytest.mark.slow
-@pytest.mark.skipif(len(jax.devices()) < 4, reason="needs 4 devices")
-def test_sharded_temporal_ad_gradient_parity(rng):
-    """jax.grad through shard_map + the tent-gather custom VJP == oracle
-    autodiff: ppermute transposes route halo gradients back to the owning
-    tiles, the kernel adjoint handles the tent scatter + motion term."""
-    from jax import shard_map
-    from raymarchdenoisercuda_tpu.parallel.mesh import make_mesh
-    from raymarchdenoisercuda_tpu.parallel.sharded import (
-        temporal_accumulate_local, PLANE, PLANES,
-    )
-
-    H = W = 32
-    motion = jnp.zeros((2, H, W)).at[1].set(1.75).at[0].set(-0.5)
-    g = _gbuf(rng, H, W, motion=motion)
-    hist = _warm_history(g).replace(
-        color=jnp.asarray(rng.random((3, H, W), dtype=np.float32)))
-    params = SVGFParams(history_clamp=True, max_motion=4)
-
-    mesh = make_mesh(4)
-    gb_specs = GBuffer(render=PLANES, albedo=PLANES, normal=PLANES,
-                       depth=PLANE, motion=PLANES, denoised=None)
-    h_specs = History(color=PLANES, moments=PLANES, length=PLANE,
-                      prev_depth=PLANE, prev_normal=PLANES)
-
-    def make_loss(fn):
-        def L(render, hc, mot):
-            gg = g.replace(render=render, motion=mot, denoised=None)
-            hh = hist.replace(color=hc)
-            i, v, nh = fn(gg, hh)
-            return (jnp.sum(i ** 2) + jnp.sum(v * 1.3)
-                    + jnp.sum(nh.color * 0.7) + jnp.sum(nh.length * 0.1))
-        return L
-
-    sharded = shard_map(
-        lambda gb, h: temporal_accumulate_local(
-            gb, h, H, W, params=params, impl="pallas_ad", interpret=True),
-        mesh=mesh, in_specs=(gb_specs, h_specs),
-        out_specs=(PLANES, PLANE, h_specs), check_vma=False)
-
-    args = (g.render, hist.color, g.motion)
-    ga = jax.grad(make_loss(lambda gb, h: temporal_accumulate(
-        gb, h, params=params)), argnums=(0, 1, 2))(*args)
-    gb = jax.grad(make_loss(sharded), argnums=(0, 1, 2))(*args)
-    for name, x, y in zip(["d_render", "d_hist_color", "d_motion"], ga, gb):
-        np.testing.assert_allclose(np.asarray(y), np.asarray(x),
-                                   rtol=1e-5, atol=1e-6, err_msg=name)
-        assert np.abs(np.asarray(x)).max() > 0, f"{name} trivially zero"
-
-
-def test_temporal_pallas_no_boost_config_parity(rng):
-    """variance_boost_frames=0 skips the 7x7 spatial-moment window at trace
-    time in the fused kernel (round 5) — outputs must still match the
-    oracle exactly (the fallback could never be selected)."""
-    from raymarchdenoisercuda_tpu.ops.pallas.temporal_tpu import (
-        temporal_accumulate_pallas)
-
+def test_temporal_no_boost_config_paths_agree(rng):
+    """variance_boost_frames=0 never selects the spatial-moment fallback:
+    the variance is the temporal one on both reprojection paths."""
     g, hist = _rand_gbuf_hist(rng)
-    params = SVGFParams(max_motion=6, variance_boost_frames=0)
-    a = temporal_accumulate(g, hist, params=params)
-    b = temporal_accumulate_pallas(g, hist, params=params, interpret=True)
-    np.testing.assert_array_equal(np.asarray(a[0]), np.asarray(b[0]))
-    np.testing.assert_array_equal(np.asarray(a[1]), np.asarray(b[1]))
+    a = temporal_accumulate(
+        g, hist, params=SVGFParams(max_motion=6, variance_boost_frames=0))
+    b = temporal_accumulate(
+        g, hist, params=SVGFParams(max_motion=None, variance_boost_frames=0))
+    np.testing.assert_allclose(np.asarray(a[0]), np.asarray(b[0]), atol=1e-5)
+    np.testing.assert_allclose(np.asarray(a[1]), np.asarray(b[1]), atol=1e-5)
+    m = np.asarray(a[2].moments)
+    np.testing.assert_allclose(np.asarray(a[1]),
+                               np.maximum(m[1] - m[0] ** 2, 0.0), atol=1e-7)
+
+
+def test_temporal_gradient_matches_finite_differences(rng):
+    """d(loss)/d(render) through the temporal step (bounded-shift path)
+    agrees with a central difference along a random direction."""
+    g, hist = _rand_gbuf_hist(rng, 16, 20)
+    params = SVGFParams(max_motion=6)
+
+    def loss(r):
+        i, v, nh = temporal_accumulate(g.replace(render=r), hist,
+                                       params=params)
+        return jnp.sum(i ** 2) + jnp.sum(v) + 0.5 * jnp.sum(nh.moments)
+
+    r0 = g.render
+    grad = np.asarray(jax.grad(loss)(r0), np.float64)
+    u = rng.standard_normal(r0.shape).astype(np.float32)
+    eps = 1e-3
+    fd = (float(loss(r0 + eps * u)) - float(loss(r0 - eps * u))) / (2 * eps)
+    ad = float((grad * u).sum())
+    assert abs(ad - fd) <= 2e-2 * max(abs(fd), 1.0), (ad, fd)

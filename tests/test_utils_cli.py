@@ -9,9 +9,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from raymarchdenoisercuda_tpu import testing as rt
-from raymarchdenoisercuda_tpu.utils import tiling, checkpoint
-from raymarchdenoisercuda_tpu.gbuffer import History
+from raymarchdenoiser import testing as rt
+from raymarchdenoiser.utils import tiling, checkpoint
+from raymarchdenoiser.gbuffer import History
 
 
 @pytest.fixture(autouse=True)
@@ -58,7 +58,7 @@ def test_failing_case_reports_fail():
 
 
 def test_cli_help_and_unknown(capsys):
-    from raymarchdenoisercuda_tpu import cli
+    from raymarchdenoiser import cli
 
     assert cli.main(["-h"]) == 0
     out = capsys.readouterr().out
@@ -68,7 +68,7 @@ def test_cli_help_and_unknown(capsys):
 
 
 def test_cli_runs_image_case(capsys):
-    from raymarchdenoisercuda_tpu import cli
+    from raymarchdenoiser import cli
 
     rc = cli.main(["-t", "IMAGE"])
     out = capsys.readouterr().out
@@ -81,10 +81,10 @@ def test_tiling_model_matches_notebook():
     assert [tiling.spacing(l) for l in range(5)] == [1, 2, 4, 8, 16]
     assert tiling.halo_radius(2, 4) == 32
     assert tiling.tile_extent(2, 0, 16) == 20  # notebook level-0 tile 20
-    budgets = tiling.vmem_budget(1920, 112, 2, 5)
-    assert budgets[0].vmem_bytes < budgets[4].vmem_bytes
-    ici = tiling.ici_budget(270, 480, 2, 5)
-    assert ici[4].ici_bytes > ici[0].ici_bytes
+    halo = tiling.halo_bytes(270, 480, 2, 5)
+    assert halo[4] > halo[0]
+    # level 0 on a 270x480 tile: 2-px rows both sides + cols incl. corners
+    assert halo[0] == 9 * 4 * (2 * 2 * 480 + 2 * 2 * (270 + 4))
 
 
 def test_checkpoint_roundtrip(tmp_path):
@@ -106,7 +106,7 @@ def test_checkpoint_shape_mismatch_raises(tmp_path):
 
 
 def test_csv_dump(tmp_path):
-    from raymarchdenoisercuda_tpu.utils.timing import CsvDump
+    from raymarchdenoiser.utils.timing import CsvDump
 
     p = str(tmp_path / "out.csv")
     d = CsvDump(p)
@@ -120,7 +120,7 @@ def test_csv_dump(tmp_path):
 def test_checkpoint_orbax_roundtrip(tmp_path):
     """The orbax path itself (not the .npz fallback) round-trips a pytree."""
     pytest.importorskip("orbax.checkpoint")
-    from raymarchdenoisercuda_tpu.utils import checkpoint
+    from raymarchdenoiser.utils import checkpoint
 
     tree = {"a": jnp.arange(6.0).reshape(2, 3), "b": {"c": jnp.ones((4,))}}
     path = str(tmp_path / "ckpt_orbax")
@@ -133,7 +133,7 @@ def test_checkpoint_orbax_roundtrip(tmp_path):
 
 
 def test_timer_syncs_registered_result():
-    from raymarchdenoisercuda_tpu.utils.timing import Timer
+    from raymarchdenoiser.utils.timing import Timer
 
     x = jnp.ones((256, 256))
     with Timer() as t:

@@ -4,7 +4,7 @@
 The reference ships a full Doxygen setup (``/root/reference/Doxyfile``,
 ``Makefile:70-71``: EXTRACT_ALL over src/ + include/ into build/docs).  This
 environment has neither doxygen, pdoc nor sphinx, so this is a dependency-free
-equivalent: it imports every module of ``raymarchdenoisercuda_tpu``, extracts
+equivalent: it imports every module of ``raymarchdenoiser``, extracts
 the public API (classes, functions, dataclasses, signatures, docstrings) via
 ``inspect``, and emits one HTML page per module plus a cross-linked index
 into ``build/docs``.  Import errors are build failures (exit 1), not warnings
@@ -27,7 +27,7 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-PACKAGE = "raymarchdenoisercuda_tpu"
+PACKAGE = "raymarchdenoiser"
 
 _CSS = """
 body { font-family: -apple-system, 'Segoe UI', sans-serif; margin: 2em auto;
@@ -156,7 +156,7 @@ def main():
     index = (f"<!doctype html><html><head><meta charset='utf-8'>"
              f"<title>{PACKAGE} API</title><style>{_CSS}</style></head><body>"
              f"<h1>{PACKAGE} — API documentation</h1>"
-             f"<p>TPU-native differentiable raymarcher + SVGF denoiser "
+             f"<p>Differentiable raymarcher + SVGF denoiser in JAX "
              f"(Doxygen-parity docs; see README.md).</p>"
              f"<table><tr><th>module</th><th>symbols</th></tr>"
              + "\n".join(toc) + "</table></body></html>")
